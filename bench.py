@@ -1,35 +1,31 @@
-"""Benchmark: robust Schur-LM bundle adjustment throughput on TPU.
+"""Benchmark: robust Schur-LM bundle adjustment throughput on one GPU.
 
-Prints ONE JSON line: {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}.
+Prints ONE JSON line: BA iterations/s on the standard synthetic problem
+(16 cameras, 8192 tracks, ~131k observations with 0.5 px pixel noise) under
+quaternion and Euler cameras, with the device it ran on (JAX platform,
+device kind and count) and the card's name and power limit from nvidia-smi.
+vs_baseline is the speedup over the same solver on the host CPU backend
+(the reference implementation runs on the CPU: Ceres SPARSE_SCHUR + OpenMP).
+Each timed solve runs to completion (block_until_ready); compilation is
+excluded by a warm-up call. Fails when JAX's first device is not a GPU.
 
-Metric: BA iterations/second on the standard synthetic problem (16 cameras,
-8192 tracks, ~131k observations, quaternion parameterization). vs_baseline is
-the speedup over the same solver on host CPU — the reference implementation is
-CPU-only (Ceres SPARSE_SCHUR + OpenMP), so TPU/CPU throughput is the
-apples-to-apples "beat the reference's platform" ratio (BASELINE.md north
-star: >5x CPU pipeline throughput).
-
-Methodology (round 4): throughput is measured PIPELINED — `calls` back-to-back
-ba.run dispatches with ONE final block_until_ready — because the attached TPU
-runtime imposes a ~25-45 ms completion-sync floor on ANY non-trivial program
-(measured: a single jitted 1024² matmul syncs in ~25 ms; a 100-call async
-chain of the same program completes in ~77 ms total). Per-solve sync timing
-therefore measures the host runtime's floor, not the solver: it caps a
-30-iteration solve at ≤1200 it/s no matter how fast the kernel is. Production
-pipelines dispatch many device programs between syncs, so pipelined
-throughput is the number that transfers. Both are reported:
-`value`/`*_iter_per_s` are pipelined; `synced_single_call_iter_per_s` and
-`sync_floor_ms` record the old methodology and the measured floor.
+    python bench.py
 """
 
 import json
-import sys
 import time
 
 import numpy as np
 
 
+NOISE_PX = 0.5  # SIFT-like localisation noise: the optimum's cost is not ~0
+
+
 def make_problem(num_views=16, n_points=8192, width=2048.0):
+    """Cameras (quaternion, view 0 fixed) perturbed by up to 1° from ground
+    truth, triangulated points, and (T, V, 2) observations with Gaussian
+    pixel noise of NOISE_PX, so the optimum has a well-defined cost."""
+    import jax
     import jax.numpy as jnp
 
     from orthosfm_tpu.core import cameras as cam_mod, quaternions as quat
@@ -39,6 +35,8 @@ def make_problem(num_views=16, n_points=8192, width=2048.0):
     ds = synthetic.generate_dataset(synthetic.sphere_cloud(n_points),
                                     num_views=num_views, seed=0,
                                     width=int(width), height=int(width))
+    tracks = synthetic.add_observation_noise(ds.tracks, NOISE_PX,
+                                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     pert = np.asarray(ds.gt_cameras.rot[:, :3]) + np.deg2rad(
         rng.uniform(-1.0, 1.0, (num_views, 3))).astype(np.float32)
@@ -46,128 +44,82 @@ def make_problem(num_views=16, n_points=8192, width=2048.0):
     cams = cam_mod.make_quaternion(np.arange(num_views), width, width,
                                    q=quat.from_matrix(cam_mod.basis(e)))
     cams = cams.replace(fixed=jnp.zeros(num_views, bool).at[0].set(True))
-    ts = triangulate.triangulate_tracks(cams, ds.tracks, np.arange(num_views))
+    ts = triangulate.triangulate_tracks(cams, tracks, np.arange(num_views))
     mask = ts.obs_mask & ts.alive[:, None] & ts.has_point[:, None]
     return cams, ts.points, ts.obs, mask
 
 
-def time_ba(device, cams, points, obs, mask, iters=30, repeats=3,
-            impl="auto", calls=10):
-    """Time `iters` LM iterations of the BA solver on the given device.
+def to_euler(cams):
+    """The same poses as Euler (all-dof) cameras, fixed flags kept."""
+    from orthosfm_tpu.core import cameras as cam_mod
 
-    Dispatches `calls` solves back-to-back and blocks once at the end
-    (pipelined — see module docstring); returns (iterations/s, n_iters,
-    synced_single_call_iterations/s)."""
+    e = cam_mod.make_euler(
+        np.arange(len(cams.scale)), cams.width[0], cams.height[0],
+        angles=np.asarray(cam_mod.basis_to_phi_theta_roll(
+            cam_mod.basis(cams))))
+    return e.replace(fixed=cams.fixed)
+
+
+def ba_config(iters=30):
+    from orthosfm_tpu.config import BundleAdjustConfig
+
+    # function_tolerance 0: no stop on a small decrease; a solve ends after
+    # `iters` iterations, or earlier once rejected steps drive the damping
+    # to max_lambda
+    return BundleAdjustConfig(max_iterations=iters, function_tolerance=0.0,
+                              min_lambda=1e-12)
+
+
+def time_ba(device, cams, points, obs, mask, iters=30, repeats=5):
+    """Solve on `device`: (best iterations/s over `repeats` timed solves,
+    each counted at its own iteration count; the first solve's result; its
+    seconds, compilation included)."""
     import jax
 
-    from orthosfm_tpu.config import BundleAdjustConfig
     from orthosfm_tpu.solvers import ba
 
-    cfg = BundleAdjustConfig(max_iterations=iters, function_tolerance=0.0,
-                             min_lambda=1e-12, impl=impl)
+    cfg = ba_config(iters)
     args = jax.device_put((cams, points, obs, mask), device)
 
-    def run():
-        return ba.run(*args, optimize_points=True, config=cfg)
-
-    res = run()  # compile + warmup
+    t0 = time.perf_counter()
+    res = ba.run(*args, optimize_points=True, config=cfg)
     jax.block_until_ready(res.cost)
-    n_iters = int(res.iterations)
+    first_s = time.perf_counter() - t0
 
-    best_sync = float("inf")
+    ips = 0.0
     for _ in range(repeats):
         t0 = time.perf_counter()
-        jax.block_until_ready(run().cost)
-        best_sync = min(best_sync, time.perf_counter() - t0)
-
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        results = [run() for _ in range(calls)]
-        jax.block_until_ready([r.cost for r in results])
-        best = min(best, time.perf_counter() - t0)
-    return n_iters * calls / best, n_iters, n_iters / best_sync
+        r = ba.run(*args, optimize_points=True, config=cfg)
+        jax.block_until_ready(r.cost)
+        ips = max(ips, int(r.iterations) / (time.perf_counter() - t0))
+    return ips, res, first_s
 
 
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from orthosfm_tpu.utils import compile_cache, device
 
-    # Make both the TPU (default) and host CPU backends available
-    default_devices = jax.devices()
-    tpu_dev = default_devices[0]
-    try:
-        cpu_dev = jax.devices("cpu")[0]
-    except RuntimeError:
-        cpu_dev = None
+    compile_cache.enable()
+    info = device.require_gpu()
+    gpu, cpu = jax.devices()[0], jax.devices("cpu")[0]
 
     cams, points, obs, mask = make_problem()
-
-    tpu_ips, n_iters, tpu_sync_ips = time_ba(tpu_dev, cams, points, obs, mask)
-
-    vs_baseline = 1.0
-    if cpu_dev is not None and cpu_dev.platform != tpu_dev.platform:
-        try:
-            cpu_ips, _, _ = time_ba(cpu_dev, cams, points, obs, mask,
-                                    repeats=1, calls=2)
-            vs_baseline = tpu_ips / cpu_ips
-        except Exception as e:  # pragma: no cover
-            print(f"cpu baseline failed: {e}", file=sys.stderr)
-
-    # Secondary metrics so a regression in ANY solver path shows up in the
-    # one recorded line: the two-kernel Pallas path, the pure-XLA path, and
-    # the Euler parameterization (auto path).
-    extras = {"synced_single_call_iter_per_s": round(tpu_sync_ips, 3),
-              "sync_floor_ms": round(_sync_floor_ms(), 2)}
-    for key, kwargs in (
-            ("pallas_iter_per_s", dict(impl="pallas")),
-            ("xla_iter_per_s", dict(impl="xla")),
-    ):
-        try:
-            ips, _, _ = time_ba(tpu_dev, cams, points, obs, mask, repeats=2,
-                                **kwargs)
-            extras[key] = round(ips, 3)
-        except Exception as e:  # pragma: no cover
-            print(f"{key} failed: {e}", file=sys.stderr)
-    try:
-        from orthosfm_tpu.core import cameras as cam_mod
-
-        e_cams = cam_mod.make_euler(
-            np.arange(len(cams.scale)), 2048.0, 2048.0,
-            angles=np.asarray(cam_mod.basis_to_phi_theta_roll(
-                cam_mod.basis(cams))))
-        e_cams = e_cams.replace(fixed=cams.fixed)
-        ips, _, _ = time_ba(tpu_dev, e_cams, points, obs, mask, repeats=2)
-        extras["euler_iter_per_s"] = round(ips, 3)
-    except Exception as e:  # pragma: no cover
-        print(f"euler metric failed: {e}", file=sys.stderr)
+    quat_ips, res, compile_s = time_ba(gpu, cams, points, obs, mask)
+    euler_ips, _, _ = time_ba(gpu, to_euler(cams), points, obs, mask)
+    cpu_ips, _, _ = time_ba(cpu, cams, points, obs, mask, repeats=1)
 
     print(json.dumps({
         "metric": "ba_iterations_per_s_16cam_8192trk",
-        "value": round(tpu_ips, 3),
+        "value": quat_ips,
         "unit": "iter/s",
-        "vs_baseline": round(vs_baseline, 3),
-        **extras,
+        "vs_baseline": quat_ips / cpu_ips,
+        "euler_iter_per_s": euler_ips,
+        "iterations_per_solve": int(res.iterations),
+        "quat_compile_s": compile_s,
+        "device": info,
+        "nvidia_smi": device.nvidia_smi(),
     }))
-
-
-def _sync_floor_ms(n=5):
-    """Measured per-sync completion floor of this runtime in its steady
-    (post-big-program) state: best of n trivial jitted-op round trips."""
-    import jax
-    import jax.numpy as jnp
-
-    x = jnp.ones((8, 128))
-    f = jax.jit(lambda x: x * 2.0 + 1.0)
-    jax.block_until_ready(f(x))
-    best = float("inf")
-    for _ in range(n):
-        t0 = time.perf_counter()
-        jax.block_until_ready(f(x))
-        best = min(best, time.perf_counter() - t0)
-    return best * 1e3
 
 
 if __name__ == "__main__":

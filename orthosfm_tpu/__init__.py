@@ -1,6 +1,6 @@
-"""ortho-sfm-tpu: TPU-native Structure-from-Motion for orthographic multi-view images.
+"""ortho-sfm-tpu: Structure-from-Motion for orthographic multi-view images in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference C++
+A from-scratch JAX/XLA re-design of the capabilities of the reference C++
 pipeline OrthoSfM (kai-neumann/OrthoSfM): SIFT feature detection + exhaustive
 pairwise matching with geometric verification, feature-track building,
 group-wise incremental pose initialization via RANSAC'd Tomasi-Kanade
@@ -9,19 +9,20 @@ adjustment under four camera parameterizations.
 
 Instead of OpenMP threads and Ceres, all numeric work is expressed as batched /
 vmapped / sharded array programs: tracks, observations and RANSAC hypotheses
-are dense padded tensors that shard across a TPU mesh; the bundle-adjustment
-normal equations are Schur-reduced over point blocks with `psum` collectives
-assembling the camera system.
+are dense padded tensors that shard across a device mesh; the
+bundle-adjustment normal equations are Schur-reduced over point blocks with
+`psum` collectives assembling the camera system.
 """
 
 __version__ = "0.1.0"
 
-# SfM geometry cannot tolerate bf16 matmul/conv lowering (the TPU default for
-# f32 dots): rotation products pick up ~4e-3 non-orthogonality, the Gaussian
+# SfM geometry cannot tolerate reduced-precision float32 matmuls. On NVIDIA
+# GPUs XLA may run an f32 dot or convolution in TF32 (a 10-bit mantissa, about
+# three decimal digits): rotation products lose orthogonality, the Gaussian
 # pyramid swamps the DoG contrast threshold (0.02/3), and the BA normal
 # equations lose the curvature detail LM needs near convergence. Pin every
-# precision-unspecified dot/conv to full f32 MXU passes; kernels that can
-# safely trade precision for speed opt in explicitly with a precision= arg.
+# precision-unspecified dot/conv to full f32; code that can safely trade
+# precision for speed opts in explicitly with a precision= argument.
 import jax as _jax
 
 _jax.config.update("jax_default_matmul_precision", "highest")

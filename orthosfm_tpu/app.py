@@ -15,7 +15,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="orthosfm-tpu",
-        description="TPU-native structure from motion for orthographic images",
+        description="Structure from motion for orthographic images",
     )
     p.add_argument("project_folder", help="folder to store the project in")
     p.add_argument("image_folder", help="folder with input images")
@@ -46,11 +46,11 @@ def main(argv=None) -> int:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from orthosfm_tpu.utils import compile_cache
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    compile_cache.enable()
 
     from orthosfm_tpu.config import ReconstructionConfig, SolverType
     from orthosfm_tpu.io import project as project_io
@@ -80,6 +80,9 @@ def main(argv=None) -> int:
         from orthosfm_tpu.parallel import mesh as mesh_mod
 
         mesh = mesh_mod.make_mesh(args.devices)
+    dev = jax.devices()[0]
+    print(f"Running on {dev.platform} ({dev.device_kind}), "
+          f"{args.devices} of {jax.device_count()} device(s)")
     print(f"Using solver: {config.solver.describe()}")
     reconstruct(config, mesh=mesh)
     return 0

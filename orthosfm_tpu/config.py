@@ -95,14 +95,6 @@ class BundleAdjustConfig:
     lambda_down: float = 0.5
     min_lambda: float = 1e-12
     max_lambda: float = 1e8
-    # Use the fused Pallas normal-equation/point-update kernels on TPU
-    # backends (solvers/ba_pallas.py); pure-XLA path elsewhere.
-    use_pallas: bool = True
-    # Solver implementation override: "auto" picks the single-kernel fused
-    # LM (ba_fused.py) on TPU when the problem fits VMEM, else the
-    # two-kernel path (ba_pallas.py), else XLA. Explicit values pin a path
-    # (benchmarks, regression comparisons).
-    impl: str = "auto"  # "auto" | "xla" | "pallas" | "fused"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,13 +133,12 @@ class MatchingConfig:
     min_matching_inliers: int = 30
     # Matcher engine selection — the analog of MVE's Matching::MATCHER_*
     # option (matching_mve.cpp:406-408 defaults to MATCHER_CASCADE_HASHING;
-    # MATCHER_EXHAUSTIVE is the other choice). On TPU BOTH values run the
-    # exact exhaustive MXU similarity matmul: cascade hashing is an LSH
-    # shortlist approximation of exactly this computation, built for
-    # cache-bound CPUs; on the MXU the brute-force matmul is faster than
-    # hash-bucket gather/scatter and returns the exact top-2 (a superset of
-    # cascade's candidates), so selecting "cascade_hashing" keeps the
-    # reference's default semantics with strictly better matches.
+    # MATCHER_EXHAUSTIVE is the other choice). BOTH values run the exact
+    # exhaustive similarity matmul: cascade hashing is an LSH shortlist
+    # approximation of exactly this computation, built for cache-bound
+    # CPUs; on an accelerator the brute-force matmul returns the exact top-2
+    # (a superset of cascade's candidates), so selecting "cascade_hashing"
+    # keeps the reference's default semantics with strictly better matches.
     matcher: str = "cascade_hashing"  # "cascade_hashing" | "exhaustive"
     ransac_f_iterations: int = 1000
     ransac_f_threshold: float = 0.0015  # on normalized coords

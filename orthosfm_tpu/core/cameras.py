@@ -26,12 +26,12 @@ Conventions (matching the reference exactly):
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from orthosfm_tpu.config import SolverType
 from orthosfm_tpu.core import quaternions as quat
+from orthosfm_tpu.utils.pytree import pytree_dataclass, static_field
 
 CAMERA_DISTANCE = 10.0
 # Tangent layout for BA (both parameterizations): [r0, r1, r2, offX, offY, scale]
@@ -41,7 +41,7 @@ CAMERA_TANGENT_DIM = 6
 COORD_TRANSFORM = jnp.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class CameraSet:
     """A batch of cameras for one solver type.
 
@@ -58,8 +58,8 @@ class CameraSet:
     height: jnp.ndarray  # (V,) float
     view_ids: jnp.ndarray  # (V,) int32
     fixed: jnp.ndarray  # (V,) bool — fully-fixed cameras (gauge anchoring)
-    kind: str = flax.struct.field(pytree_node=False, default="quat")
-    solver: int = flax.struct.field(pytree_node=False, default=int(SolverType.ORTHO_QUATERNION))
+    kind: str = static_field("quat")
+    solver: int = static_field(int(SolverType.ORTHO_QUATERNION))
 
     def __len__(self):
         return self.rot.shape[0]
@@ -315,18 +315,6 @@ def free_mask(cams: CameraSet):
         )
     mask = jnp.broadcast_to(base, (n, CAMERA_TANGENT_DIM))
     return mask & ~cams.fixed[:, None]
-
-
-def active_param_slots(cams: CameraSet) -> tuple:
-    """Tangent slots whose free_mask base can be True for SOME camera —
-    statically known from (kind, solver). The remaining slots are constant
-    for every camera (Ceres never adds constant parameter blocks to the
-    Schur system); solvers exclude them from the reduced camera system."""
-    if cams.kind == "quat":
-        return (0, 1, 2, 3, 4)
-    dof = SolverType(cams.solver).degrees_of_freedom
-    return tuple(i for i, on in enumerate(
-        [dof >= 1, dof >= 2, dof >= 3, dof >= 4, dof >= 4, dof >= 5]) if on)
 
 
 def retract(cams: CameraSet, delta):

@@ -1,6 +1,6 @@
 """Synthetic dataset generation for solver development and robustness tests.
 
-TPU-native analog of the reference testbench fixtures
+Analog of the reference testbench fixtures
 (src/testbench/dataset_generation.cpp:14-93): 16 virtual 2048×2048 views on a
 22.5°-spaced ring with random theta/roll ∈ ±30°, perfect tracks built by
 projecting a point cloud through the ground-truth cameras.
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import os
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,13 +23,14 @@ import numpy as np
 from orthosfm_tpu.config import SolverType
 from orthosfm_tpu.core import cameras as cam_mod
 from orthosfm_tpu.data import tracks as tracks_mod
+from orthosfm_tpu.utils.pytree import pytree_dataclass, static_field
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class SyntheticDataset:
     tracks: tracks_mod.TrackSet
     gt_cameras: cam_mod.CameraSet  # Euler ground truth
-    name: str = flax.struct.field(pytree_node=False, default="")
+    name: str = static_field("")
 
 
 def cube_cloud(n_per_edge: int = 21, extent: float = 1.0) -> np.ndarray:

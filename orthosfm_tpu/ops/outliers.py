@@ -1,7 +1,7 @@
 """Outlier filtering on track tensors.
 
-TPU-native equivalents of src/triangulation/outlier_filtering.cpp: the O(N²)
-nearest-neighbour scan becomes one pairwise-distance matrix reduction (MXU),
+Array-program equivalents of src/triangulation/outlier_filtering.cpp: the
+O(N²) nearest-neighbour scan becomes one pairwise-distance matrix reduction,
 and the per-feature reprojection filter becomes masked updates on the
 observation mask instead of list surgery.
 """
@@ -26,7 +26,7 @@ def nearest_neighbor_distances(pts, has_pt):
     """Min distance from each pointed track to any other pointed track.
 
     The reference's O(N²) scan (outlier_filtering.cpp:14-38) becomes a
-    row-chunked matmul sweep: each (chunk × T) distance tile is one MXU
+    row-chunked matmul sweep: each (chunk × T) distance tile is one
     matmul + reduction, and only O(chunk·T) memory is live — so the filter
     scales to ≥100k tracks instead of materializing a T×T matrix."""
     T = pts.shape[0]

@@ -60,10 +60,9 @@ def _epipolar_rows(p1, p2):
 def _nullspace9(A):
     """Unit null vector of an (8, 9) system via unrolled Householder QR of
     Aᵀ: Aᵀ = QR ⇒ null(A) = Q·e₉ = H₁(H₂(…H₈(e₉))). Eight reflections of
-    9-vectors — branch-free, fully unrolled, vmappable — replace the
-    batched (8, 9) SVD whose iterative lowering dominated RANSAC-F wall
-    time on TPU (measured: 1.9 s of a 2.6 s stage for 120k hypotheses vs
-    0.06 s for sampling+scoring). Householder QR is backward stable, so —
+    9-vectors — branch-free, fully unrolled, vmappable — replace a batched
+    (8, 9) SVD, whose iterative solver is costly at 120k hypotheses per
+    stage. Householder QR is backward stable, so —
     unlike a normal-equations/inverse-iteration formulation, which squares
     the conditioning and loses the null direction in f32 — the result
     matches the SVD null vector to ~cond(A)·ε_f32."""
@@ -89,7 +88,7 @@ def ransac_fundamental(p1, p2, valid, key, iterations: int = 1000,
                        threshold: float = 0.0015) -> RansacFResult:
     """p1, p2: (M, 2) normalized correspondence coords; valid: (M,) mask.
 
-    TPU-first hypothesis loop: the null vector comes from the unrolled
+    Batched hypothesis loop: the null vector comes from the unrolled
     Householder QR (_nullspace9) instead of an (8, 9) SVD; the rank-2
     enforcement stays per hypothesis, exactly like the reference
     (mve/sfm/fundamental.cc enforce_fundamental_constraints) — scoring the

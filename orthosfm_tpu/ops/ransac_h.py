@@ -1,6 +1,6 @@
 """Batched RANSAC homography estimation + IRLS refinement.
 
-TPU-native equivalent of the reference's CudaSift geometric-verification path
+Batched equivalent of the reference's CudaSift geometric-verification path
 (src/cuda_sift/matching.cu FindHomography — 10000 random 4-point hypotheses
 scored on GPU — and src/cuda_sift/geomFuncs.cpp:6-60 ImproveHomography — 50
 iteratively-reweighted 8×8 DLT solves on the inlier set). Selected via the

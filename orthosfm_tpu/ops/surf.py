@@ -10,7 +10,7 @@ samples (surf.cc:310-375), single-step 3×3×3 quadratic localization with
 orientation (surf.cc:519-617) and the 4×4 × (Σdx, Σdy, Σ|dx|, Σ|dy|)
 descriptor with σ = 3.3s weighting (surf.cc:663-733).
 
-TPU design notes: the summed-area table is int32 (exact for ≤8 MP byte
+Array design notes: the summed-area table is int32 (exact for ≤8 MP byte
 images — the reference caps at 6 MP); response maps are shifted-slice
 differences of the SAT (no scatter/loops); keypoints are fixed-capacity
 top-k; orientation/descriptor stages are vmapped SAT gathers.
@@ -48,15 +48,17 @@ class SurfFeatures(NamedTuple):
 
 def _cumsum_exact_last(x_i32, block: int, max_val: int):
     """Inclusive int32 cumsum along the last axis via blocked triangular
-    matmuls on the MXU.
+    matmuls.
 
-    jnp.cumsum lowers to a sequential scan that measured ~0.4 s per axis per
-    2048² view on the v5e — 13 s for a 16-view SURF stack, dwarfing the
-    actual box filtering. The blocked form does an in-block inclusive
-    cumsum as one (..., nb, B)·(B, B) upper-triangular matmul (f32 exact:
-    `block` is chosen so block·max_val < 2²⁴, so every partial sum is an
+    The blocked form does an in-block inclusive cumsum as one
+    (..., nb, B)·(B, B) upper-triangular matmul (f32 exact: `block` is
+    chosen so block·max_val < 2²⁴, so every partial sum is an
     exactly-representable integer) plus a tiny inter-block carry cumsum —
-    bit-identical to jnp.cumsum, ~3 orders of magnitude faster."""
+    bit-identical to jnp.cumsum. It replaces a sequential scan over the
+    2048-wide axis; whether the scan or this form is faster on a given
+    device is a measurement, not a given. The product is asked for at
+    HIGHEST precision explicitly: exactness needs full float32 operands,
+    and a TF32 pass (10-bit mantissa) would round the partial sums."""
     assert block * max_val < (1 << 24), "f32 matmul would round"
     n = x_i32.shape[-1]
     nb = -(-n // block)
@@ -66,6 +68,7 @@ def _cumsum_exact_last(x_i32, block: int, max_val: int):
     U = jnp.asarray(np.triu(np.ones((block, block), np.float32)))
     inner = jax.lax.dot_general(
         xb, U, (((xb.ndim - 1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32).astype(jnp.int32)
     totals = inner[..., :, -1]
     carry = jnp.cumsum(totals, axis=-1) - totals  # exclusive, (..., nb)
@@ -190,7 +193,7 @@ def _detect_octave(resp, cap: int):
 def _localize_octave(resp, s, y, x, valid, o: int):
     """Single-iteration 3×3×3 quadratic localization (surf.cc:356-475),
     vectorized over keypoints: one gather per stencil tap + a closed-form
-    cofactor solve on the VPU (per-keypoint LU solves serialize on TPU)."""
+    closed-form cofactor solve (no per-keypoint LU)."""
     S4, h, w = resp.shape
     iy = jnp.clip(y, 1, h - 2)
     ix = jnp.clip(x, 1, w - 2)
@@ -347,11 +350,11 @@ def _descriptor_block(S, vi, kx, ky, scale, ori):
 # ---------------------------------------------------------------------------
 # Haar-response-map orientation/descriptor path. The block functions above
 # gather 12 SAT corners per Haar sample (6 108 random gathers per keypoint
-# across both stages); TPU random-gather throughput (~65 M elem/s measured)
-# made that the whole SURF stage's bottleneck. Keypoint scales come from a
+# across both stages), and random gathers are slow next to contiguous
+# slices. Keypoint scales come from a
 # STATIC table (KERNEL_SIZES → scale = 0.4·fs, truncated to int), so the
 # pipeline buckets keypoints by integer scale and, per scale, precomputes
-# full Haar dx/dy maps with shifted SAT slices (pure VPU, no gathers) —
+# full Haar dx/dy maps with shifted SAT slices (elementwise, no gathers) —
 # sampling then costs 2 gathers per sample instead of 12. For every
 # in-bounds keypoint the values are bit-identical to the gather path (the
 # windows guarantee no corner clamping; out-of-bounds keypoints are
@@ -542,8 +545,7 @@ def _detect_surf_batch(grays, per_octave_cap: int):
     # lax.map (not vmap): the ~60 floats/pixel response/NMS transients then
     # exist for ONE view at a time, so the whole 16-view reference-scale
     # stack runs as a single program (vmap made transients scale with the
-    # chunk, forcing 4-view chunks + 4x the dispatch/sync overhead on the
-    # remote-dispatch TPU runtime).
+    # chunk, forcing 4-view chunks and 4x the dispatches).
     return jax.lax.map(one, grays)
 
 

@@ -1,6 +1,6 @@
 """Batched orthographic ray triangulation.
 
-TPU-native equivalent of the reference's per-track OpenMP loop
+Batched equivalent of the reference's per-track OpenMP loop
 (src/triangulation/triangulation.cpp:11-93): every track's least-squares
 nearest-point-to-N-lines system Σ(I − d dᵀ)p = Σ(I − d dᵀ)o is assembled with
 masked reductions and solved as a batch of 3×3 systems — one fused XLA program

@@ -2,8 +2,9 @@
 
 The pipeline's scaling axes are #tracks, #observations and #RANSAC hypotheses
 (SURVEY.md §2.3): all shard over a single 1-D mesh axis ("tracks"), with
-cameras replicated — collectives ride ICI via psum in the BA normal-equation
-assembly (parallel/ba_sharded.py).
+cameras replicated — psum collectives assemble the BA normal equations
+(parallel/ba_sharded.py). The cards of one host are joined all to all, so a
+1-D mesh is all the algorithm needs.
 """
 
 from __future__ import annotations
@@ -16,8 +17,14 @@ TRACK_AXIS = "tracks"
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
+    """1-D mesh over the first ``n_devices`` devices (all when None). Raises
+    when fewer devices exist than asked for."""
     devices = jax.devices()
     n = n_devices or len(devices)
+    if n > len(devices):
+        raise RuntimeError(
+            f"make_mesh: {n} devices requested, {len(devices)} available "
+            f"({devices[0].platform})")
     return Mesh(np.asarray(devices[:n]), (TRACK_AXIS,))
 
 
@@ -26,11 +33,10 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> Mesh:
     """Initialize multi-host execution and return the global mesh.
 
-    On a TPU pod slice launched through the standard runtime, arguments are
-    discovered automatically (jax.distributed.initialize()); explicit values
-    support manual/DCN setups. Collectives then ride ICI within a slice and
-    DCN across slices — the framework's replacement for a NCCL/MPI backend
-    (the reference has no distributed story at all; SURVEY.md §2.3).
+    Pass the coordinator's address (``host:port``), the number of processes
+    and this process's id; collectives across processes then run through
+    JAX's distributed runtime (the reference has no distributed story at
+    all; SURVEY.md §2.3).
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

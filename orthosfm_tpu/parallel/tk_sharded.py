@@ -4,7 +4,7 @@ The reference parallelizes RANSAC iterations with OpenMP threads
 (tomasi_kanade.cpp:225); here each device evaluates its shard of the
 hypothesis batch (sampling → factorization → metric upgrade → triangulation →
 consensus scoring) and only the per-hypothesis scores are all-gathered for
-the argmax — a few hundred floats over ICI per group initialization.
+the argmax — a few hundred floats per group initialization.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Tomasi-Kanade factorization initialization with batched RANSAC.
 
-TPU-native redesign of the reference's OpenMP RANSAC loop
+Batched redesign of the reference's OpenMP RANSAC loop
 (src/algorithms/tomasi_kanade.cpp:20-470): all hypotheses run as ONE vmapped
 program — Gumbel top-k sampling replaces std::sample, the Ceres DENSE_QR
 metric upgrade becomes a vmapped dense LM (solvers/lm.py), consensus scoring is
@@ -130,7 +130,7 @@ def _triangulate_and_errors(model, obs, valid, width, height):
     b = jnp.sum(jnp.einsum("tgij,tgj->tgi", proj, origins) * mask_rays[..., None], axis=1)
     from orthosfm_tpu.solvers.ba import solve3x3
 
-    pts = solve3x3(A, b)  # (T, 3) — closed-form, no batched LU on TPU
+    pts = solve3x3(A, b)  # (T, 3) — closed-form, no batched LU
 
     local = jnp.einsum("gij,ti->tgj", R, pts)  # Rᵀ·p
     xy = local[..., :2] / (-2.0) + 0.5

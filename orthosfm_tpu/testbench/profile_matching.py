@@ -1,6 +1,5 @@
 """Per-substage profile of the track-building stage (feature extraction →
-pairwise matching → union-find), the dominant end-to-end phase at reference
-scale (docs/bench_details.json 16x2048: 11.98 s of 14.48 s total in round 4).
+pairwise matching → union-find).
 
 Renders the hermetic benchmark dataset, warms the compile cache with one full
 pass, then re-runs build_tracks under utils.profiling.collect_stages —
@@ -11,7 +10,7 @@ enqueued it. The reference's analog is per-stage WallTimer prints inside MVE
 
 Usage:
     python -m orthosfm_tpu.testbench.profile_matching [--views 16]
-        [--width 2048] [--json docs/matching_profile.json]
+        [--width 2048] [--json OUT.json]
 """
 
 from __future__ import annotations
@@ -28,8 +27,9 @@ def profile_matching(num_views: int = 16, width: int = 2048, seed: int = 7,
                      warmup: bool = True):
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from orthosfm_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from orthosfm_tpu.config import ReconstructionConfig
     from orthosfm_tpu.data import views as views_mod
@@ -41,8 +41,7 @@ def profile_matching(num_views: int = 16, width: int = 2048, seed: int = 7,
     try:
         render.make_image_dataset(images, num_views=num_views, width=width,
                                   height=width, seed=seed, ring_degrees=200.0)
-        cfg = ReconstructionConfig(project_folder="/tmp/unused",
-                                   image_folder=images)
+        cfg = ReconstructionConfig(image_folder=images)
         views = views_mod.load_views(images, downscale_factor=1)
         if warmup:
             matching.build_tracks(views, cfg, verbose=False)
@@ -54,7 +53,8 @@ def profile_matching(num_views: int = 16, width: int = 2048, seed: int = 7,
             total = time.monotonic() - t0
         n_tracks = int(ts.alive.sum()) if hasattr(ts, "alive") else -1
         return {"num_views": num_views, "width": width,
-                "platform": jax.default_backend(),
+                "platform": jax.devices()[0].platform,
+                "device_kind": jax.devices()[0].device_kind,
                 "total_s": round(total, 3), "num_tracks": n_tracks,
                 "stages": {k: round(v, 3) for k, v in stages.items()}}
     finally:

@@ -44,9 +44,14 @@ def main(argv=None) -> int:
     p.add_argument("--platform", default="")
     args = p.parse_args(argv)
 
-    if args.platform:
-        import jax
+    import jax
 
+    if args.subprocess:
+        # Each child process runs the app on the accelerator; this parent
+        # renders and scores on the CPU so that it holds no device memory a
+        # child would need (one process per card).
+        jax.config.update("jax_platforms", "cpu")
+    elif args.platform:
         jax.config.update("jax_platforms", args.platform)
 
     os.makedirs(args.project_folder, exist_ok=True)

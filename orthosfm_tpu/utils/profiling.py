@@ -2,14 +2,16 @@
 
 The reference's observability is coarse phase timers persisted to
 time_measurements.txt (src/util/timing.cpp) plus per-stage prints. This module
-keeps that surface (PhaseTimer) and adds the TPU-native piece the reference
-lacks: `device_trace` wraps a region in a jax.profiler trace whose
-tensorboard-viewable output shows per-op device time (XLA/Mosaic kernels).
+keeps that surface (PhaseTimer) and adds what the reference lacks:
+`device_trace` wraps a region in a jax.profiler trace whose output shows
+per-op device time (XLA kernels, cuBLAS/cuDNN calls).
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
+import os
 import time
 from typing import Dict, List, Tuple
 
@@ -53,9 +55,9 @@ _STAGES: "Dict[str, float] | None" = None
 
 
 def _device_barrier() -> None:
-    """Block until all previously enqueued device programs complete (TPU
-    executes programs in stream order, so syncing a fresh trivial program
-    fences everything enqueued before it)."""
+    """Block until all previously enqueued device programs complete (a
+    device executes one process's programs in stream order, so syncing a
+    fresh trivial program fences everything enqueued before it)."""
     import jax
     import jax.numpy as jnp
 
@@ -113,3 +115,67 @@ def device_trace(logdir: str):
                 jax.profiler.stop_trace()
             except Exception:  # pragma: no cover
                 pass
+
+
+def device_op_summary(logdir: str, top: int = 15) -> List[dict]:
+    """Reduce the newest jax.profiler trace under `logdir`, per device plane:
+    the window from the first device operation's start to the last one's
+    end, busy time (union of operation intervals; idle share = 1 − busy /
+    window), and the `top` operations by summed device time with their
+    counts. Operations are read from the plane's "XLA Ops" line where it
+    has one, else from its stream lines."""
+    from jax.profiler import ProfileData
+
+    paths = sorted(glob.glob(os.path.join(logdir, "plugins", "profile", "*",
+                                          "*.xplane.pb")))
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb trace under {logdir}")
+    out = []
+    for plane in ProfileData.from_file(paths[-1]).planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        lines = {line.name: list(line.events) for line in plane.lines}
+        source = ([n for n in lines if n == "XLA Ops"]
+                  or [n for n in lines if n.startswith("Stream")])
+        events = [e for n in source for e in lines[n]]
+        if not events:
+            continue
+        totals: Dict[str, List[float]] = {}
+        for e in events:
+            t = totals.setdefault(e.name, [0.0, 0])
+            t[0] += e.duration_ns
+            t[1] += 1
+        spans = [(e.start_ns, e.end_ns) for e in events]
+        window = max(e for _, e in spans) - min(s for s, _ in spans)
+        ops = sorted(totals.items(), key=lambda kv: -kv[1][0])[:top]
+        out.append({"plane": plane.name,
+                    "lines": {n: len(ev) for n, ev in lines.items()},
+                    "source": source, "window_ns": window,
+                    "busy_ns": busy_ns(spans),
+                    "ops": [(n, t, int(c)) for n, (t, c) in ops]})
+    return out
+
+
+def busy_ns(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, lo, hi = 0.0, None, None
+    for s, e in sorted(spans):
+        if hi is None or s > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return busy + (0.0 if hi is None else hi - lo)
+
+
+def format_device_ops(summary: List[dict]) -> str:
+    rows = []
+    for p in summary:
+        w, b = p["window_ns"], p["busy_ns"]
+        rows.append(f"{p['plane']}: window {w / 1e6:.3f} ms, busy "
+                    f"{b / 1e6:.3f} ms, idle share {1 - b / max(w, 1):.4f} "
+                    f"(ops from {p['source'][:3]}; lines {p['lines']})")
+        for name, t, c in p["ops"]:
+            rows.append(f"  {t / 1e6:12.3f} ms {100 * t / max(b, 1):6.2f}% "
+                        f"x{c:<6d} {name[:120]}")
+    return "\n".join(rows)

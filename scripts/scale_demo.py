@@ -6,8 +6,8 @@ used cameras per group (src/data_structures/group.cpp:13-88) and its Ceres
 BA is CPU-bound; published runs stop at ~16 views. This demo runs the
 complete incremental loop (grouping, RANSAC'd TK inits, local BAs,
 align/merge, periodic + final global BA over ALL cameras, outlier filters)
-at --views 64 / --tracks 50k+ on one TPU chip and reports wall time plus
-angular error vs ground truth. Results are recorded in docs/SCALING.md.
+at --views 64 / --tracks 50k+ on one device and reports wall time plus
+angular error vs ground truth, with the device it ran on.
 
     python scripts/scale_demo.py [--views 64] [--tracks 50000] [--json out]
 """
@@ -34,8 +34,10 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+    from orthosfm_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import numpy as np
 
@@ -69,7 +71,8 @@ def main():
         "mean_angular_error_deg": round(float(np.mean(ang)), 4),
         "max_angular_error_deg": round(float(np.max(ang)), 4),
         "mean_position_error": round(float(np.mean(pos)), 5),
-        "platform": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
     }
     print(json.dumps(out))
     if args.json:

@@ -45,7 +45,7 @@ def test_reconstruct_with_masks_and_downscale(tmp_path):
     (reference flags --mask-folder / --downscale-factor, main.cpp:28-38).
     Images render at 448² and reconstruct at downscale 2; masks blank a
     40 px border so every surviving track feature must be inside it."""
-    from PIL import Image
+    from orthosfm_tpu.io import png
 
     images = str(tmp_path / "images")
     masks = str(tmp_path / "masks")
@@ -58,7 +58,7 @@ def test_reconstruct_with_masks_and_downscale(tmp_path):
     m = np.zeros((W, W), np.uint8)
     m[border:-border, border:-border] = 255
     for i in range(5):
-        Image.fromarray(m).save(os.path.join(masks, f"view_{i:02d}_mask.png"))
+        png.write_png(os.path.join(masks, f"view_{i:02d}_mask.png"), m)
 
     project_io.create_project(proj)
     cfg = ReconstructionConfig(project_folder=proj, image_folder=images,

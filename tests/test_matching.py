@@ -61,6 +61,33 @@ def test_match_pair_mutual_consistency():
     np.testing.assert_array_equal(perm[recovered], np.arange(32))
 
 
+@pytest.mark.parametrize("n1,n2,valid1,valid2,seed", [
+    (64, 80, 64, 80, 0),      # all rows valid
+    (300, 257, 250, 200, 1),  # padded tails on both sides
+    (128, 128, 100, 128, 2),  # invalid rows only in set 1
+])
+def test_match_pair_equals_batched_and_numpy_reference(n1, n2, valid1,
+                                                       valid2, seed):
+    """match_pair is match_pairs_batched at B=1, and both agree with the
+    float64 NumPy reference that chip_smoke.py checks the card against."""
+    import chip_smoke
+
+    d1, v1, d2, v2 = chip_smoke.planted_descriptors(1, max(n1, n2), 128,
+                                                    seed=seed)
+    d1, d2 = d1[0, :n1], d2[0, :n2]
+    v1 = np.arange(n1) < valid1
+    v2 = np.arange(n2) < valid2
+    args = tuple(jnp.asarray(a) for a in (d1, v1, d2, v2))
+    single = np.asarray(match_ops.match_pair(*args, lowe_ratio=0.8))
+    batched = np.asarray(match_ops.match_pairs_batched(
+        *(a[None] for a in args), lowe_ratio=0.8))[0]
+    ref = chip_smoke.reference_match(d1, v1, d2, v2, 0.8)
+    np.testing.assert_array_equal(single, batched)
+    np.testing.assert_array_equal(single, ref)
+    assert (ref >= 0).sum() > min(valid1, valid2) // 4  # planted matches
+    assert np.all(ref[~v1] == -1) and np.all(v2[ref[ref >= 0]])
+
+
 def test_ransac_fundamental_rejects_outliers():
     rng = np.random.default_rng(2)
     n = 200

@@ -1,12 +1,11 @@
 """Matmul-precision regression guard.
 
-On TPU, precision-unspecified f32 dots/convs lower to bf16 MXU passes
-(~4e-3 relative error). That silently breaks SfM: rotation compositions pick
-up ~5e-3 non-orthogonality (≈0.3° pose error before any estimation), the SIFT
-Gaussian pyramid swamps the DoG contrast threshold (0.02/S ≈ 0.0067), and
-matching collapses (observed: 0 matching pairs end-to-end on hardware while
-the CPU suite stayed green). The package pins jax_default_matmul_precision at
-import; this test guards the pin.
+On NVIDIA GPUs, precision-unspecified f32 dots/convs may run in TF32 (a
+10-bit mantissa, ~1e-3 relative error). That silently breaks SfM: rotation
+compositions lose orthogonality, the SIFT Gaussian pyramid swamps the DoG
+contrast threshold (0.02/S ≈ 0.0067), and matching degrades while a CPU suite
+stays green. The package pins jax_default_matmul_precision at import; this
+test guards the pin.
 """
 
 import jax
